@@ -7,116 +7,76 @@ multiply/add ops applied between ONE read and ONE write, swept over image
 resolutions, vs launching one device program per op (the per-op pattern) —
 the 2x-10000x speedup axis of the reference (``README.md:140``).
 
-On TPU the fused chain is a single XLA program (XLA fuses the unrolled
-StaticLoop chain into one kernel); the per-op baseline dispatches one jitted
-program per MAD step. Writes the reference-protocol CSV via
-BenchmarkRecorder and prints a summary table.
+The fused chain is a single XLA program (XLA fuses the unrolled StaticLoop
+chain into one kernel); the per-op baseline dispatches one jitted program
+per MAD step. Both are timed with ``block_until_ready``; the fused chain's
+device time per call comes from a profiler trace. Prints the card's name
+and power limit first.
 
-Usage: python benchmarks/vertical_fusion.py [--ops 200] [--iters 20]
+Usage: python benchmarks/vertical_fusion.py [--ops 200] [--iters 20] [--csv PATH]
 """
 
 import argparse
 import os
 import sys
-import time
 
-import numpy as np
 import jax
-import jax.numpy as jnp
+import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import cvgpuspeedup_tpu as cvgs
-from cvgpuspeedup_tpu.utils.profiling import BenchmarkRecorder, TimingStats
+import cvgpuspeedup_tpu as cvgs  # noqa: E402
+from cvgpuspeedup_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+from cvgpuspeedup_tpu.utils.profiling import (BenchmarkRecorder, device_time,  # noqa: E402
+                                              require_gpu, time_fn)
 
 # resolution sweep: edge sizes (reference sweeps 100 -> ~17M elements)
 RESOLUTIONS = [128, 512, 1024, 2048, 4096]
 
 
-def device_sync(x):
-    """Honest sync (see bench.py: transfers are the only real sync here)."""
-    return jax.device_get(jnp.ravel(x)[0])
-
-
 def fused_chain(n_ops):
     mad = cvgs.fuse(cvgs.multiply(1.0009), cvgs.add(0.0001))
-    assert n_ops % 2 == 0
+    assert n_ops % 20 == 0
     # nested StaticLoop exactly like the reference's
     # StaticLoop<StaticLoop<MAD, k>, N/k> (vertical_fusion_static_loop.cuh:33-46)
-    inner = cvgs.static_loop(mad, 10)
-    return cvgs.static_loop(inner, n_ops // 2 // 10)
-
-
-def run_fused(img, chain, iters):
-    from functools import partial
-
-    # n sizes the scan: it must be STATIC (jnp.arange of a traced length
-    # cannot trace)
-    @partial(jax.jit, static_argnums=1)
-    def step(x, n):
-        def body(c, i):
-            p = cvgs.build_pipeline(cvgs.image(c[..., None] + i * 0.0), chain)
-            return p.lower()[..., 0], None
-        out, _ = jax.lax.scan(body, x, jnp.arange(n))
-        return out
-
-    device_sync(step(img, iters))
-    t0 = time.perf_counter()
-    device_sync(step(img, iters))
-    t_total = time.perf_counter() - t0
-    device_sync(step(img, 1))
-    t0 = time.perf_counter()
-    device_sync(step(img, 1))
-    t_one = time.perf_counter() - t0
-    return max(t_total - t_one, 1e-9) / (iters - 1)
-
-
-def run_per_op(img, n_ops, iters=2):
-    mul = jax.jit(lambda x: x * np.float32(1.0009))
-    add = jax.jit(lambda x: x + np.float32(0.0001))
-    def one_pass(x):
-        for _ in range(n_ops // 2):
-            x = mul(x)
-            x = add(x)
-        return x
-    device_sync(one_pass(img))
-    t0 = time.perf_counter()
-    out = img
-    for _ in range(iters):
-        out = one_pass(out)
-    device_sync(out)
-    return (time.perf_counter() - t0) / iters
+    return cvgs.static_loop(cvgs.static_loop(mad, 10), n_ops // 2 // 10)
 
 
 def main():
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ops", type=int, default=200)
-    ap.add_argument("--iters", type=int, default=21)
-    ap.add_argument("--csv", default="benchmarks/vertical_fusion_results.csv")
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--csv", default=None, help="write the CSV rows here")
     args = ap.parse_args()
 
-    print(f"backend: {jax.default_backend()}", file=sys.stderr)
-    # warm the transfer path once
-    device_sync(jnp.ones((8, 8)))
+    header = require_gpu()
+    enable_compile_cache()
+    print(header, flush=True)
 
     chain = fused_chain(args.ops)
-    rec = BenchmarkRecorder(args.csv)
+    mul = jax.jit(lambda x: x * np.float32(1.0009))
+    add = jax.jit(lambda x: x + np.float32(0.0001))
+
+    def per_op(x):
+        for _ in range(args.ops // 2):
+            x = add(mul(x))
+        return x
+
+    rec = BenchmarkRecorder(args.csv or os.devnull)
     for edge in RESOLUTIONS:
         img = jax.device_put(np.linspace(0, 1, edge * edge, dtype=np.float32)
-                             .reshape(edge, edge))
-        t_fused = run_fused(img, chain, args.iters)
-        t_perop = run_per_op(img, args.ops)
-        rec.add_case(
-            f"{edge}x{edge}_{args.ops}ops",
-            TimingStats(t_perop, 0.0, t_perop, t_perop, 1),
-            TimingStats(t_fused, 0.0, t_fused, t_fused, args.iters),
-        )
-        elems = edge * edge
-        print(f"{edge:5}x{edge:<5} fused {t_fused*1e6:9.1f} us | per-op "
-              f"{t_perop*1e6:9.1f} us | speedup {t_perop/t_fused:8.1f}x | "
-              f"{elems*args.ops/t_fused/1e12:6.2f} TFLOP-equiv/s", file=sys.stderr)
-    rec.write()
-    print(f"csv -> {args.csv}", file=sys.stderr)
+                             .reshape(edge, edge, 1))
+        fused = lambda: cvgs.execute_operations(cvgs.image(img), chain)
+        t_fused = time_fn(fused, iters=args.iters)
+        t_perop = time_fn(lambda: per_op(img), iters=max(3, args.iters // 5))
+        dt = device_time(fused, iters=5)
+        rec.add_case(f"{edge}x{edge}_{args.ops}ops", t_perop, t_fused)
+        print(f"{edge:5}x{edge:<5} fused median {t_fused.median * 1e6:9.1f} us "
+              f"(device {dt['total'] * 1e6:9.1f} us) | per-op median "
+              f"{t_perop.median * 1e6:9.1f} us | speedup "
+              f"{t_perop.median / t_fused.median:8.1f}x", flush=True)
+    if args.csv:
+        rec.write()
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
-"""cvgpuspeedup_tpu — a TPU-native fused vision-preprocessing engine.
+"""cvgpuspeedup_tpu — a fused vision-preprocessing engine in JAX.
 
-Brand-new JAX/XLA/Pallas implementation of the capabilities of
-cvGPUSpeedup + FusedKernelLibrary (reference mounted at /root/reference):
-a lazy operation graph that compiles every preprocessing pipeline into ONE
-fused device program — read HBM once, compute the whole chain on-chip, write
-once — replacing the kernel-per-op launch pattern of classic vision libraries.
+A JAX/XLA implementation of the capabilities of cvGPUSpeedup +
+FusedKernelLibrary: a lazy operation graph that compiles every
+preprocessing pipeline into ONE fused device program — read device memory
+once, compute the whole chain in registers, write once — replacing the
+kernel-per-op launch pattern of classic vision libraries.
 
 This module is the public factory surface, mirroring the ``cvGS::`` API
 (reference ``include/cvGPUSpeedup.cuh:30-628``) with JAX types: factories
@@ -179,10 +179,8 @@ def image(source: ArrayLike, channels: Optional[int] = None) -> ReadOp:
     """Wrap a packed (H, W, C) / (N, H, W, C) array as a read op
     (``fk::PerThreadRead`` analog).
 
-    HOST (numpy) arrays are ingested in packed-lane form — a free row-major
-    reshape to (H, W*C) — so the Pallas kernels can DMA the rows directly;
-    the same reshape ON DEVICE is a full XLA relayout copy (~82 us at 1080p,
-    more than the fused kernel itself). Device arrays are wrapped as-is.
+    HOST (numpy) arrays are ingested in packed-row form — a free row-major
+    reshape to (H, W*C). Device arrays are wrapped as-is.
 
     ``channels=C`` declares an ALREADY-packed (H, W*C) (or (N, H, W*C))
     buffer — e.g. a raw row-major frame straight from `utils.frameloader`
@@ -318,22 +316,10 @@ def resize_batch(
         if isinstance(frame, np.ndarray) and not isinstance(frame, jnp.ndarray):
             packed_c = int(frame.shape[-1])
         frame_hwc = frame
-        is_concrete = not isinstance(rects, jax.core.Tracer)
         rect_arr = rects if isinstance(rects, jax.core.Tracer) else np.asarray(rects, np.int32)
         if rect_arr.ndim != 2 or rect_arr.shape[1] != 4:
             raise ValueError("rects must be (N, 4) [x, y, w, h]")
         nch = channels or (frame.shape[-1] if frame.ndim == 3 else 1)
-        max_w = max_h = None
-        uniform_wh = None
-        if is_concrete:
-            r_np = np.asarray(rects)
-            fh, fw = int(frame.shape[0]), int(frame.shape[1])
-            # bucket to multiples of (8, 32) so rect-size jitter between calls
-            # never recompiles the fused kernel
-            max_w = min(fw, int(-(-int(r_np[:, 2].max()) // 32) * 32))
-            max_h = min(fh, int(-(-int(r_np[:, 3].max()) // 8) * 8))
-            if len(set(r_np[:, 2])) == 1 and len(set(r_np[:, 3])) == 1:
-                uniform_wh = (int(r_np[0, 2]), int(r_np[0, 3]))
         if packed_c:
             frame = np.ascontiguousarray(frame_hwc).reshape(
                 frame_hwc.shape[0], frame_hwc.shape[1] * packed_c
@@ -347,20 +333,12 @@ def resize_batch(
             dsize=dsize,
             aspect_ratio=aspect_ratio,
             interp=interpolation,
-            max_crop_w=max_w,
-            max_crop_h=max_h,
-            uniform_wh=uniform_wh,
             packed_channels=packed_c,
         )
     imgs = [np.asarray(s) for s in source]
     nch = channels or (imgs[0].shape[-1] if imgs[0].ndim == 3 else 1)
-    # pad the stack to TPU-tiling-aligned dims (8 rows, 128-lane pixel
-    # boundary) so the Pallas emitter can DMA whole planes
-    from .exec.pallas_backend import _lane_align_px
-
-    _align = _lane_align_px(nch)
-    max_h = -(-max(i.shape[0] for i in imgs) // 8) * 8
-    max_w = -(-max(i.shape[1] for i in imgs) // _align) * _align
+    max_h = max(i.shape[0] for i in imgs)
+    max_w = max(i.shape[1] for i in imgs)
     stack = np.zeros((len(imgs), max_h, max_w, nch), dtype=imgs[0].dtype)
     rect_list = []
     for z, im in enumerate(imgs):
@@ -368,21 +346,17 @@ def resize_batch(
             im = im[:, :, None]
         stack[z, : im.shape[0], : im.shape[1], :] = im
         rect_list.append((0, 0, im.shape[1], im.shape[0]))
-    _dims = {(r[2], r[3]) for r in rect_list}
-    stack = stack.reshape(len(imgs), max_h, max_w * nch)  # packed lanes
+    stack = stack.reshape(len(imgs), max_h, max_w * nch)  # packed rows
     return BatchResizeRead(
         frame=None,
         stack=stack,
         packed_channels=nch,
         rects=np.asarray(rect_list, np.int32),
-        uniform_wh=(_dims.pop() if len(_dims) == 1 else None),
         used_planes=None if used_planes is None else _np_or_traced(used_planes, np.int32),
         background=_dt.as_channel_vector(background, nch, np.float32),
         dsize=dsize,
         aspect_ratio=aspect_ratio,
         interp=interpolation,
-        max_crop_w=max_w,
-        max_crop_h=max_h,
     )
 
 
@@ -416,30 +390,14 @@ def warp(
             nch = 1
         else:
             nch = int(source.shape[-1])
-    from .exec.pallas_warp import scale_buckets
-    from .exec.pallas_warp_general import general_buckets
-    from .exec.pallas_warp_universal import universal_buckets
     from .ops.warp import decompose_inverse_map
 
     terms = decompose_inverse_map(inv, dsize)
-    sep = scale_buckets(inv) if warp_type == WarpType.AFFINE else None
-    gen = (
-        general_buckets(inv)
-        if warp_type == WarpType.AFFINE and sep is None
-        else None
-    )
-    # universal kernel buckets: the fallback Pallas class for everything the
-    # separable/consumer-unique kernels reject (upscales, flips, perspective)
-    uni = universal_buckets(inv, dsize) if sep is None and gen is None else None
     return WarpRead(
         source=src,
-        coeffs=jnp.asarray(np.asarray(inv, np.float32).ravel()),
         default=_dt.as_channel_vector(default, nch, np.float32),
         dsize=dsize,
         warp_type=warp_type,
-        sep_buckets=sep,
-        gen_buckets=gen,
-        uni_buckets=uni,
         **terms,
     )
 
@@ -486,38 +444,8 @@ def warp_batch(
     out-of-source samples; ``default`` fills planes beyond ``used_planes``."""
     if len(sources) != len(matrices):
         raise ValueError("need one matrix per source image")
-    from dataclasses import replace as _dc_replace
-
-    from .exec.pallas_warp_universal import universal_buckets
-
-    warps = []
-    buckets = []
-    for s, m in zip(sources, matrices):
-        wr = warp(s, m, dsize, warp_type=warp_type, default=border_value)
-        if wr.uni_buckets is None:
-            # the single-image factory only computes universal buckets when
-            # the separable/general kernels rejected the map; the BATCHED
-            # kernel is the universal one, so every plane needs them (the
-            # batch kernel sizes its static tiles by the batch-max buckets)
-            inv = np.asarray(wr.coeffs, np.float64).reshape(-1, 3)
-            wr = _dc_replace(wr, uni_buckets=universal_buckets(inv, dsize))
-        warps.append(wr)
-        buckets.append(wr.uni_buckets)
-    # UNIFORM static buckets across the batch: the batch kernel sizes its
-    # tiles by the max anyway, and identical statics keep every sub-read
-    # structurally identical — required by the plane-axis sharding
-    # (parallel.mesh._execute_sharded_batchread) and by the compile cache
-    if all(b is not None for b in buckets) and len(
-            {b[0] for b in buckets}) == 1:
-        bmax = (buckets[0][0],) + tuple(
-            max(b[i] for b in buckets) for i in range(1, 5))
-    else:
-        bmax = None
-    # sep/gen buckets are single-image kernel statics the batched path never
-    # consults — clear them too, or per-plane static differences would break
-    # the structural identity the sharding and compile cache rely on
-    warps = [_dc_replace(w, uni_buckets=bmax, sep_buckets=None,
-                         gen_buckets=None) for w in warps]
+    warps = [warp(s, m, dsize, warp_type=warp_type, default=border_value)
+             for s, m in zip(sources, matrices)]
     return batch_read(
         warps,
         used_planes=used_planes,
@@ -545,9 +473,8 @@ def batch_read(
 def circular_batch_read(data: ArrayLike, first, ascendent: bool = True,
                         channels: Optional[int] = None) -> ReadOp:
     """Temporal ring view (F8). Host (numpy) rings of shape (N, H, W, C)
-    ingest packed — (N, H, W*C) lane rows, free on the host — so the
-    divergent Pallas kernel reads them without a per-call relayout;
-    ``channels=C`` declares an already-packed ring."""
+    ingest packed — (N, H, W*C) rows, free on the host; ``channels=C``
+    declares an already-packed ring."""
     packed = 0
     if channels is not None:
         arr = data if isinstance(data, (jnp.ndarray, jax.core.Tracer))             else np.asarray(data)
@@ -601,12 +528,9 @@ def split_tensor_transposed() -> WriteOp:
 
 
 def split_tensor_packed() -> WriteOp:
-    """Planar tensor in the fully-packed TPU tiling (N, C, H/f, f*W) —
-    row-major-identical to :func:`split_tensor` (``reshape(N, C, H, W)``
-    recovers it; ``reshape(N, C*H*W)`` is the reference's flat per-image
-    row). Fills all 128 lanes of every vector row when W < 128, which the
-    planar layout cannot — use for peak write bandwidth when the consumer
-    accepts flat plane buffers."""
+    """Planar tensor reshaped to (N, C, H/f, f*W) — row-major-identical to
+    :func:`split_tensor` (``reshape(N, C, H, W)`` recovers it;
+    ``reshape(N, C*H*W)`` is the reference's flat per-image row)."""
     return TensorSplitPacked()
 
 

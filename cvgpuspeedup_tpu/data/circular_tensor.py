@@ -10,10 +10,10 @@ semantics pinned exactly by
   insert by SHIFTING the other BATCH-1 planes in a single divergent-batch
   kernel ("some threads normalize the new image, others copy old planes",
   ``README.md:149-155``) — a copy of the whole ring every frame. Here the
-  TPU-native design is strictly better: the ring is stored in ROLLING SLOT
-  ORDER with a host-tracked offset, so ``update`` writes exactly ONE plane
-  slot (a donated ``dynamic_update_slice`` — in-place in HBM) and nothing is
-  ever copied. Readers apply the modular index instead: ``read_batch()``
+  ring is stored in ROLLING SLOT ORDER with a host-tracked offset, so
+  ``update`` writes exactly ONE plane slot (a donated
+  ``dynamic_update_slice`` — in place in device memory) and nothing is ever
+  copied. Readers apply the modular index instead: ``read_batch()``
   yields a :class:`~cvgpuspeedup_tpu.ops.memory.CircularBatchRead` whose
   runtime ``first`` scalar presents the logically-ordered window to any fused
   pipeline with zero data movement, and ``.tensor`` materializes the rotated
@@ -126,8 +126,8 @@ class CircularTensor:
         """The zero-copy read head: a :class:`CircularBatchRead` over the raw
         ring whose runtime ``first`` scalar applies the logical order, for use
         at the head of any fused pipeline (``execute_operations(ct.read_batch(),
-        ...)``). This is the TPU answer to the reference's shift-kernel: the
-        ring never moves, readers index it modularly. STANDARD/PACKED layouts
+        ...)``). This replaces the reference's shift-kernel: the ring never
+        moves, readers index it modularly. STANDARD/PACKED layouts
         only (the plane axis must lead)."""
         if self.planes == ColorPlanes.TRANSPOSED:
             raise ValueError(

@@ -1,1 +1,1 @@
-"""Executors and backends (XLA fuser + Pallas emitters)."""
+"""The executor: pipeline build, the compile cache, the divergent launcher."""

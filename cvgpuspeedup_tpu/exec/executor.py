@@ -1,6 +1,6 @@
 """The executor — ``execute_operations`` and the pipeline compile cache.
 
-TPU-native equivalent of ``fk::executeOperations`` + the TransformDPP launcher
+JAX equivalent of ``fk::executeOperations`` + the TransformDPP launcher
 (reference F12; wrapper overloads at ``include/cvGPUSpeedup.cuh:464-584``).
 
 The reference performs fusion at C++ compile time and launches one CUDA kernel
@@ -8,7 +8,7 @@ per call. Here, a pipeline's *structure* (op classes, dtypes, static geometry)
 lives in the pytree treedef while all runtime parameters (images, rects,
 scalars) are leaves, so:
 
-- first call with a given structure: trace + XLA/Mosaic compile -> ONE fused
+- first call with a given structure: trace + XLA compile -> ONE fused
   device program (the single-kernel guarantee);
 - every later call with new parameter values: cache hit, zero Python-side
   rebuild — the analog of the reference's "graph build is allocation-free and
@@ -38,33 +38,8 @@ __all__ = [
     "build_operation_sequence",
     "launch_divergent_batch",
     "clear_cache",
-    "debug_mode",
-    "describe_backend",
     "last_backend",
 ]
-
-import contextlib
-import threading
-
-_DEBUG = threading.local()
-
-
-@contextlib.contextmanager
-def debug_mode():
-    """Force every Pallas lowering into interpreter mode within the scope —
-    the TPU analog of the reference's device-debug builds (``nvcc -G``,
-    SURVEY.md §5.2): full Python-level inspectability + bounds checking of
-    the kernel path, identical numerics."""
-    prev = getattr(_DEBUG, "on", False)
-    _DEBUG.on = True
-    try:
-        yield
-    finally:
-        _DEBUG.on = prev
-
-
-def _debug_active() -> bool:
-    return getattr(_DEBUG, "on", False)
 
 
 @op
@@ -141,116 +116,37 @@ def build_pipeline(*iops: IOp, input: Optional[jnp.ndarray] = None) -> Pipeline:
 
 # --- compile cache --------------------------------------------------------
 
-_CACHE: Dict[Tuple, Callable] = {}
+_CACHE: Dict[object, Callable] = {}
 
 
 def clear_cache() -> None:
     _CACHE.clear()
 
 
-def _lower_with_backend(pipeline: Pipeline, backend: ParBackend):
-    if backend in (ParBackend.PALLAS, ParBackend.PALLAS_INTERPRET):
-        from . import (pallas_backend, pallas_frame, pallas_warp,
-                       pallas_warp_general, pallas_warp_universal)
-
-        interpret = backend == ParBackend.PALLAS_INTERPRET
-        lowered = pallas_backend.try_lower(pipeline, interpret=interpret)
-        if lowered is None:
-            lowered = pallas_frame.try_lower(pipeline, interpret=interpret)
-        if lowered is None:
-            lowered = pallas_warp.try_lower(pipeline, interpret=interpret)
-        if lowered is None:
-            lowered = pallas_warp_general.try_lower(pipeline, interpret=interpret)
-        if lowered is None:
-            lowered = pallas_warp_universal.try_lower(pipeline, interpret=interpret)
-        if lowered is not None:
-            return lowered
-        # fall through: pattern not supported by any Pallas emitter
-    return pipeline.lower()
-
-
-def _resolve_auto(pipeline: Pipeline, platform: Optional[str] = None) -> ParBackend:
-    """Pick the fastest backend, not just a supported one: ``supports()``
-    true does not imply faster — the frame kernel's fixed launch overheads
-    lose to XLA on small sources (measured 133 vs 17 us on a 64x128 frame),
-    so AUTO applies its profitability gate. An explicit ParBackend.PALLAS
-    request bypasses the gate (``_lower_with_backend`` honors it as-is).
-    ``platform`` overrides ``jax.default_backend()`` (used by the sharded
-    executor and by tests that assert the gate's decisions off-TPU)."""
-    from . import (pallas_backend, pallas_frame, pallas_warp,
-                   pallas_warp_general, pallas_warp_universal)
-
-    backend = platform if platform is not None else jax.default_backend()
-    if backend == "tpu" and (
-        pallas_backend.supports(pipeline)
-        or (pallas_frame.supports(pipeline) and pallas_frame.profitable(pipeline))
-        or (pallas_warp.supports(pipeline) and pallas_warp.profitable(pipeline))
-        or (pallas_warp_general.supports(pipeline)
-            and pallas_warp_general.profitable(pipeline))
-        or (pallas_warp_universal.supports(pipeline)
-            and pallas_warp_universal.profitable(pipeline))
-    ):
-        return ParBackend.PALLAS
-    return ParBackend.XLA
-
-
-def _emitter_name(pipeline: Pipeline, backend: ParBackend) -> str:
-    """Which lowering ``_lower_with_backend`` will take — same dispatch
-    order, evaluated without tracing."""
-    if backend in (ParBackend.PALLAS, ParBackend.PALLAS_INTERPRET):
-        from . import (pallas_backend, pallas_frame, pallas_warp,
-                       pallas_warp_general, pallas_warp_universal)
-
-        suffix = ":interpret" if backend == ParBackend.PALLAS_INTERPRET else ""
-        if pallas_backend.supports(pipeline):
-            return "pallas:batch_resize" + suffix
-        if pallas_frame.supports(pipeline):
-            return "pallas:frame" + suffix
-        if pallas_warp.supports(pipeline):
-            return "pallas:warp" + suffix
-        if pallas_warp_general.supports(pipeline):
-            return "pallas:warp_general" + suffix
-        if pallas_warp_universal.supports(pipeline):
-            return "pallas:warp_universal" + suffix
-    return "xla"
-
-
 _LAST_BACKEND: Optional[str] = None
 
 
-def describe_backend(*iops: IOp, input: Optional[jnp.ndarray] = None,
-                     backend: ParBackend = ParBackend.AUTO,
-                     platform: Optional[str] = None) -> str:
-    """Report which backend/emitter :func:`execute_operations` would run for
-    this op list — making the kernel geometry gates OBSERVABLE (an odd-height
-    frame silently dropping to the 40x-slower XLA path is a perf cliff users
-    and tests must be able to see). ``platform`` overrides the detected
-    platform for the AUTO resolution (e.g. assert TPU routing from a CPU
-    test). Returns e.g. ``"pallas:batch_resize"``, ``"pallas:warp"``,
-    ``"xla"``."""
-    pipeline = build_pipeline(*iops, input=input)
-    if backend == ParBackend.AUTO:
-        backend = _resolve_auto(pipeline, platform)
-    return _emitter_name(pipeline, backend)
-
-
 def last_backend() -> Optional[str]:
-    """The emitter used by the most recent :func:`execute_operations` /
-    :func:`launch_divergent_batch` call in this process (None before any)."""
+    """The lowering used by the most recent :func:`execute_operations` /
+    :func:`launch_divergent_batch` call in this process (None before any):
+    ``"xla"`` or ``"xla:divergent"``."""
     return _LAST_BACKEND
 
 
-def _compiled(treedef, backend: ParBackend) -> Callable:
-    key = (treedef, backend)
-    fn = _CACHE.get(key)
+def _check_backend(backend) -> None:
+    if not isinstance(backend, ParBackend):
+        raise TypeError(f"backend must be a ParBackend, got {backend!r}")
+
+
+def _compiled(treedef) -> Callable:
+    fn = _CACHE.get(treedef)
     if fn is None:
 
         def run(leaves):
-            pipeline = jax.tree_util.tree_unflatten(treedef, leaves)
-            return _lower_with_backend(pipeline, backend)
+            return jax.tree_util.tree_unflatten(treedef, leaves).lower()
 
         fn = jax.jit(run)
-        _CACHE[key] = fn
+        _CACHE[treedef] = fn
     return fn
 
 
@@ -265,15 +161,12 @@ def execute_operations(
     compiled program is cached by pipeline structure; parameter-only changes
     (new frames, new rects, new scalars) reuse it.
     """
+    _check_backend(backend)
     pipeline = build_pipeline(*iops, input=input)
-    if _debug_active() and backend in (ParBackend.AUTO, ParBackend.PALLAS):
-        backend = ParBackend.PALLAS_INTERPRET
-    if backend == ParBackend.AUTO:
-        backend = _resolve_auto(pipeline)
     global _LAST_BACKEND
-    _LAST_BACKEND = _emitter_name(pipeline, backend)
+    _LAST_BACKEND = "xla"
     leaves, treedef = jax.tree_util.tree_flatten(pipeline)
-    return _compiled(treedef, backend)(leaves)
+    return _compiled(treedef)(leaves)
 
 
 # --- divergent batch (reference F9) ---------------------------------------
@@ -296,18 +189,15 @@ def launch_divergent_batch(
     reference's ``SequenceSelector::at`` device functor,
     ``tests/resize/test_fused_resize.cu:22-26``). The selector is static — it
     is evaluated at trace time, so XLA compiles exactly the work each plane
-    needs (the TPU analog of the per-plane template dispatch). All sequences
+    needs (the analog of the per-plane template dispatch). All sequences
     must produce batches of the same plane count and element shape; the write
     layout of the first sequence is applied to the merged batch.
 
     A precomputed per-plane id sequence may be passed instead of a callable.
 
-    Lowering: on TPU (or under explicit PALLAS backends) supported patterns
-    run as ONE fused Pallas kernel whose grid covers the planes, each grid
-    step executing its plane's sequence — the reference's single
-    ``launchDivergentBatchTransformDPP_Kernel``. Other patterns lower
-    through the XLA path: per-group region computations + scatter merge,
-    still one jitted program.
+    Lowering: per-group region computations + scatter merge, one jitted
+    program — the analog of the reference's single
+    ``launchDivergentBatchTransformDPP_Kernel``.
     """
     if not sequences:
         raise ValueError("need at least one operation sequence")
@@ -330,37 +220,11 @@ def launch_divergent_batch(
         if not 1 <= sid <= len(seqs):
             raise ValueError(f"selector({z}) = {sid} out of range")
 
-    from . import pallas_divergent
-
-    if _debug_active() and backend in (ParBackend.AUTO, ParBackend.PALLAS):
-        backend = ParBackend.PALLAS_INTERPRET
-    use_pallas = backend in (ParBackend.PALLAS, ParBackend.PALLAS_INTERPRET) or (
-        backend == ParBackend.AUTO and jax.default_backend() == "tpu"
-    )
-    # AUTO refuses plans whose unaligned whole-plane stacks would pay a full
-    # per-launch lane-padding copy (an explicit PALLAS request keeps them)
-    use_pallas = use_pallas and pallas_divergent.supports(
-        seqs, plane_ids, allow_pad=backend != ParBackend.AUTO
-    )
-    # warp groups bake their STATIC matrices host-side (outside jit, where
-    # they are concrete); a bake over the candidate caps falls back to XLA
-    prebaked = None
-    if use_pallas:
-        prebaked = pallas_divergent.prebake(seqs, plane_ids)
-        if prebaked is None:
-            use_pallas = False
-    interpret = backend == ParBackend.PALLAS_INTERPRET
+    _check_backend(backend)
     global _LAST_BACKEND
-    _LAST_BACKEND = ("pallas:divergent" + (":interpret" if interpret else "")
-                     if use_pallas else "xla:divergent")
+    _LAST_BACKEND = "xla:divergent"
 
     def run(seq_list):
-        if use_pallas:
-            out = pallas_divergent.try_lower(
-                seq_list, plane_ids, interpret=interpret, prebaked=prebaked
-            )
-            if out is not None:
-                return seq_list[0].write.write(out)
         # group planes by sequence id at trace time (the selector is static,
         # like the reference's constexpr SequenceSelector::at) so each
         # sequence computes ONLY its own planes, then scatter back in order
@@ -381,10 +245,7 @@ def launch_divergent_batch(
         return seq_list[0].write.write(merged)
 
     leaves, treedef = jax.tree_util.tree_flatten(seqs)
-    # warp groups bake STATIC matrices into the program: they must be part
-    # of the compile key (treedef alone only captures structure)
-    key = (treedef, "divergent", plane_ids, backend, use_pallas,
-           pallas_divergent.static_key(seqs, plane_ids) if use_pallas else ())
+    key = (treedef, "divergent", plane_ids)
     fn = _CACHE.get(key)
     if fn is None:
 

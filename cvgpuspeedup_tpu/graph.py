@@ -1,6 +1,6 @@
 """The lazy operation-graph IR — heart of the framework front-end.
 
-TPU-native re-design of the reference's "Instantiable Operation" (IOp) model
+A JAX re-design of the reference's "Instantiable Operation" (IOp) model
 (reference F4; usage ``include/cvGPUSpeedup.cuh:74-265``): factory functions
 build parameterized op nodes that execute nothing; ``execute_operations``
 compiles the whole chain into a single fused device program.
@@ -15,8 +15,8 @@ dataclass registered as a JAX pytree whose
   cache key.
 
 ``jax.jit`` over the flattened pipeline is therefore the exact analog of the
-reference's "compile-time CUDA Graphs" (``README.md:36``): one compiled XLA/
-Pallas program per pipeline *structure*, reused across frames.
+reference's "compile-time CUDA Graphs" (``README.md:36``): one compiled XLA
+program per pipeline *structure*, reused across frames.
 
 Composition mirrors the reference surface:
 
@@ -84,8 +84,8 @@ class IOp:
 class ComputeOp(IOp):
     """Pointwise stage: maps a channel-last array to a channel-last array.
 
-    Covers the reference's Unary and Binary IOps (F4/F5) — on TPU both are a
-    traced elementwise function fused into the surrounding kernel by XLA/Mosaic.
+    Covers the reference's Unary and Binary IOps (F4/F5) — both are a traced
+    elementwise function fused into the surrounding kernel by XLA.
     """
 
     def apply(self, x: jnp.ndarray) -> jnp.ndarray:
@@ -104,8 +104,7 @@ class ReadOp(IOp):
     ``Resize``, ``Crop``, ``ReadYUV``, ``BatchRead`` — F6/F7/F11). ``lower()``
     returns the full logical value array, channel-last:
     ``(H, W, C)`` for single-plane reads, ``(N, H, W, C)`` for batched reads.
-    The Pallas backend pattern-matches known read structures instead of calling
-    ``lower()``; the XLA backend calls it directly.
+    The executor calls it directly.
     """
 
     # True when lower() yields a leading batch axis. Deliberately NOT an
@@ -159,7 +158,7 @@ class WriteOp(IOp):
     """Terminal stage: maps the computed channel-last array to output layout(s).
 
     Covers ``PerThreadWrite/TensorWrite/TensorSplit/TensorTSplit/SplitWrite``
-    (reference F6). Purely a layout transform on TPU — XLA materializes the
+    (reference F6). Purely a layout transform — XLA materializes the
     requested output layout directly from the fused kernel's epilogue.
     """
 

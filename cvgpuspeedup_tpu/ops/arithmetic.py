@@ -82,8 +82,8 @@ class StaticLoop(ComputeOp):
 
     Reference ``fk::StaticLoop<Op, N>`` (nestable, e.g.
     ``StaticLoop<StaticLoop<Op, k>, N/k>`` at
-    ``benchmarks/verticalfusion/vertical_fusion_static_loop.cuh:33-46``). On TPU
-    the unrolled chain is fused by XLA into one kernel — the vertical-fusion
+    ``benchmarks/verticalfusion/vertical_fusion_static_loop.cuh:33-46``). The
+    unrolled chain is fused by XLA into one kernel — the vertical-fusion
     stress path.
     """
 

@@ -18,8 +18,8 @@ Equivalent of ``fk::Resize<InterpolationType[, AspectRatio][, BackOp]>``
   (``tests/batchresize/test_batchresize_aspectratio_x_split3D.cu:86-95``).
 
 The coordinate/weight helpers here are the single source of truth for bilinear
-numerics — the Pallas backend builds its MXU interpolation matrices from the
-same functions so both backends produce bit-identical float32 results.
+numerics: every lowering (gathers, polyphase slices, dense matmuls) takes its
+taps and weights from them.
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ from ..types import AspectRatio, InterpolationType, Size
 def axis_lerp(q, src_len, dst_len):
     """Per-output-index source taps + weight for one axis, OpenCV semantics.
 
-    OpenCV computes ``s = (q + 0.5) * (src/dst) - 0.5`` in double. Doubles are
-    slow/emulated on TPU, so we use the exact rational form instead::
+    OpenCV computes ``s = (q + 0.5) * (src/dst) - 0.5`` in double. Device
+    code avoids doubles, so we use the exact rational form instead::
 
         s = ((2q + 1) * src - dst) / (2 * dst)
 
@@ -113,8 +113,7 @@ def _bilinear_sample(img_f32, i0x, i1x, wx, i0y, i1y, wy):
     then vertical.
 
     The association (horizontal, then vertical, each as ``a*(1-w) + b*w``) is
-    fixed so the XLA gather path and the Pallas matmul path
-    (``Wv @ (src @ Wh)``) agree bit-for-bit in f32.
+    fixed; the polyphase and matmul forms keep it.
     """
     ry0 = i0y[:, None]
     ry1 = i1y[:, None]
@@ -135,8 +134,7 @@ def axis_lerp_np(q, src_len: int, dst_len: int):
     """Numpy mirror of :func:`axis_lerp` for concrete geometry (identical
     exact-integer-rational math and f32 weight division; identical edge
     clamping). Single host-side source of truth for baked weight tables —
-    used by the matmul lowering here and the Pallas backend's plane-invariant
-    constants."""
+    used by the matmul lowering here."""
     q = np.asarray(q, np.int64)
     num = (2 * q + 1) * src_len - dst_len
     den = 2 * dst_len
@@ -182,7 +180,8 @@ def _axis_phases(src_len: int, dst_len: int):
     ``Q = dst/gcd(src, dst)`` phases: outputs ``q = phi + k*Q`` share one
     weight and advance the source tap by ``P = src/gcd`` per step. Each phase
     therefore lowers to TWO STRIDED SLICES + a constant-weight lerp — no
-    gathers, which XLA:TPU handles at line rate where gathers crawl.
+    gathers. (Chosen where gathers were slow; whether it still beats the
+    gather form on the GPU is an open measurement in ROADMAP.md.)
 
     Returns ``(P, Q, i0_per_phase, w_per_phase, counts)`` with i0 UNCLAMPED
     (edge behavior is reproduced by edge-padding the source: when the exact
@@ -344,14 +343,16 @@ def _resize_axis_half(x: jnp.ndarray, axis: int, src_len_full: int, dst_len: int
 
 
 def _resize_matmul(src: jnp.ndarray, dst_w: int, dst_h: int) -> jnp.ndarray:
-    """Static-geometry bilinear resize as two dense MXU matmuls.
+    """Static-geometry bilinear resize as two dense matmuls.
 
     For ratios whose polyphase period exceeds ``_MAX_PHASES`` (prime-ish
-    destination dims, e.g. 1080p -> 97x111: 97 horizontal phases), gathers
-    crawl on TPU but the dense interpolation matrices are small — the banded
-    (src_len, dst_len) tables multiply at MXU line rate. Association is
-    horizontal-then-vertical, identical weights/taps to the gather form
-    (see ``_axis_weight_matrices``), at ``Precision.HIGHEST`` for f32 parity.
+    destination dims, e.g. 1080p -> 97x111: 97 horizontal phases), the
+    banded (src_len, dst_len) interpolation tables are small enough to
+    multiply densely. Association is horizontal-then-vertical, identical
+    weights/taps to the gather form (see ``_axis_weight_matrices``), at
+    ``Precision.HIGHEST`` so the GPU does not run these dots in TF32.
+    Whether this beats the gather form on the GPU is an open measurement
+    in ROADMAP.md.
     """
     src_h, src_w = int(src.shape[0]), int(src.shape[1])
     wh0, wh1 = (jnp.asarray(m) for m in _axis_weight_matrices(src_w, dst_w))
@@ -507,21 +508,8 @@ class BatchResizeRead(ReadOp):
     dsize: Size = static_field()
     aspect_ratio: AspectRatio = static_field(default=AspectRatio.IGNORE_AR)
     interp: InterpolationType = static_field(default=InterpolationType.INTER_LINEAR)
-    # Static crop-window bucket (rounded-up max rect dims) — set by the factory
-    # when rects are concrete. Used by the Pallas emitter to size the per-plane
-    # VMEM window DMA; the analog of the reference's compile-time batch/param
-    # geometry, bucketed so jiggling rect sizes never recompiles.
-    max_crop_w: Optional[int] = static_field(default=None)
-    max_crop_h: Optional[int] = static_field(default=None)
-    # Set when every rect shares one (w, h): the interpolation matrices are
-    # then plane-invariant and the Pallas emitter bakes them as constants
-    # fetched once per launch instead of rebuilding per plane.
-    uniform_wh: Optional[tuple] = static_field(default=None)
-    #: >0: frame/stack rows are channel-interleaved lanes — frame (H, W*C),
-    #: stack (N, H, W*C). The packing reshape is free on the host (numpy
-    #: view) but a full relayout copy on device, so the factory packs host
-    #: arrays up front and the Pallas emitter DMAs the packed rows directly
-    #: (see ops.memory.ImageRead.packed_channels).
+    #: >0: frame/stack rows are channel-interleaved — frame (H, W*C), stack
+    #: (N, H, W*C). The factory packs host arrays (a free numpy view).
     packed_channels: int = static_field(default=0)
 
     batched = True

@@ -80,13 +80,10 @@ def decompose_inverse_map(inv: np.ndarray, dsize: Size):
     ``sx(y, x) = col_x[x] + row_x[y]`` etc.
 
     The term PRODUCTS are computed in float32 (coefficients rounded to f32
-    first, then IEEE f32 multiply/add) so that a kernel can RECOMPUTE any
-    term in-kernel bit-identically from the scalar coefficients — the
-    general-affine Pallas kernel needs per-element ``d*X`` at gathered
-    columns, and a 1-ulp term mismatch at sy ~ 1000 is a 1.2e-4 coordinate
-    shift, i.e. up to ~0.03 of value error against the XLA path. (The f32
-    product is also what the reference's CUDA path effectively computes
-    per-thread.)
+    first, then IEEE f32 multiply/add), which is what the reference's CUDA
+    path effectively computes per thread; a reference that recomputes the
+    terms the same way agrees to the last bit (a 1-ulp term mismatch at
+    sy ~ 1000 is a 1.2e-4 coordinate shift, up to ~0.03 of value error).
     """
     inv = np.asarray(inv, np.float64)
     c = inv.astype(np.float32)
@@ -121,27 +118,9 @@ class WarpRead(ReadOp):
     row_y: jnp.ndarray
     col_w: object  # (W,) or None (affine)
     row_w: object
-    coeffs: jnp.ndarray  # flattened f32-rounded inverse map (6 or 9 values)
     default: jnp.ndarray  # per-channel border value, float32
     dsize: Size = static_field()
     warp_type: WarpType = static_field()
-    # Static pow2 magnitude buckets (|a|, |e|) when the inverse map is
-    # separable (no cross terms, positive scales) — set by the factory from
-    # the concrete matrix. They size the Pallas warp kernel's static DMA
-    # window extents; matrix VALUES stay runtime leaves, so any matrix whose
-    # scales stay in the same buckets reuses the compiled kernel. None means
-    # non-separable (rotation/shear/perspective): the general-affine kernel
-    # (gen_buckets) or the XLA lowering handles it.
-    sep_buckets: object = static_field(default=None)
-    # Quantized magnitude buckets (a, e, |b|, |d|, sign b, sign d) for the
-    # NON-separable affine class — sizes the general-affine kernel's static
-    # window extents and candidate counts (exec.pallas_warp_general). None
-    # means out of that kernel's class (perspective, flips, |a| < 2, ...).
-    gen_buckets: object = static_field(default=None)
-    # Quantized DERIVATIVE-BOUND buckets (persp, |dsx/dX|, |dsx/dY|,
-    # |dsy/dX|, |dsy/dY|) for the universal kernel (any affine incl.
-    # upscales/flips, and den>0 perspective) — exec.pallas_warp_universal.
-    uni_buckets: object = static_field(default=None)
 
     def lower(self) -> jnp.ndarray:
         # jnp.asarray: a host-numpy source indexed with TRACED tap indices

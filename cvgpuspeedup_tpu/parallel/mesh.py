@@ -1,17 +1,17 @@
 """Multi-chip / multi-host batch sharding of fused pipelines.
 
 The reference is single-GPU (SURVEY.md §0.5); multi-device scaling is new
-TPU-native scope (BASELINE north star): the batch (plane) axis of a fused
-pipeline shards across a ``jax.sharding.Mesh``, each device runs the SAME
-fused kernel on its plane slice (embarrassingly parallel — each image's
+scope: the batch (plane) axis of a fused pipeline shards across a
+``jax.sharding.Mesh``, each device runs the SAME fused program on its plane
+slice (embarrassingly parallel — each image's
 pipeline is independent), and collectives appear only where an output tensor
 must be reassembled or metrics reduced (SURVEY.md §5.8).
 
 Entry points:
 
 - :func:`make_mesh` — 1-D device mesh over the batch axis (multi-host: pass
-  ``jax.devices()`` after ``jax.distributed.initialize``; ICI/DCN routing is
-  XLA's job once shardings are annotated).
+  ``jax.devices()`` after ``jax.distributed.initialize``; the cards of a
+  host are joined all to all, so the mesh follows the algorithm alone).
 - :func:`execute_sharded` — ``execute_operations`` over a mesh: per-plane
   parameter leaves (rects, stacked sources) are partitioned, broadcast leaves
   (the shared frame, scalars) replicate, ragged ``used_planes`` is rebased
@@ -26,27 +26,10 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.6 exposes shard_map at the top level
-    from jax import shard_map as _shard_map_fn
-
-    def shard_map(f, mesh, in_specs, out_specs, check=True):
-        # check=False only for Pallas bodies: pallas_call outputs carry no
-        # varying-mesh-axes annotation, so the default check fails to trace
-        # there. XLA bodies keep the replication-safety net (an in/out spec
-        # mistake is a trace-time error instead of silently wrong results).
-        return _shard_map_fn(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=check)
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map_legacy
-
-    def shard_map(f, mesh, in_specs, out_specs, check=True):
-        return _shard_map_legacy(f, mesh=mesh, in_specs=in_specs,
-                                 out_specs=out_specs, check_rep=check)
-
-from ..exec.executor import (Pipeline, _lower_with_backend, _resolve_auto,
-                             build_pipeline)
+from ..exec.executor import Pipeline, _check_backend, build_pipeline
 from ..graph import IOp, ReadOp, op, static_field
 from ..ops.memory import (BatchRead, CircularBatchRead, ImageRead, SplitWrite,
                           TensorTSplit)
@@ -56,7 +39,7 @@ from ..types import ParBackend
 __all__ = ["initialize_distributed", "make_mesh", "execute_sharded",
            "execute_divergent_sharded", "scaling_efficiency"]
 
-# compile cache: (treedef, mesh, backend) -> jitted shard_map program, so
+# compile cache: (treedef, mesh, axis) -> jitted shard_map program, so
 # parameter-only changes reuse the compiled program like execute_operations
 _SHARD_CACHE: dict = {}
 
@@ -70,10 +53,11 @@ def initialize_distributed(
     process_id: Optional[int] = None,
 ) -> Mesh:
     """Multi-host bring-up: ``jax.distributed.initialize`` + a global batch
-    mesh over every chip in the pod slice.
+    mesh over every device of every process.
 
-    On TPU pods the arguments are auto-detected from the environment; pass
-    them explicitly elsewhere. Each host then calls :func:`execute_sharded`
+    Pass the coordinator address, process count and process id explicitly
+    (nothing detects a cluster automatically). Each host then calls
+    :func:`execute_sharded`
     with its host-local inputs — the host-local-feeding model the north star
     prescribes (SURVEY.md §5.8).
     """
@@ -129,6 +113,7 @@ def execute_sharded(
     their local shard, exactly the host-local-output model the north star
     prescribes.
     """
+    _check_backend(backend)
     axis = mesh.axis_names[0]
     nsh = mesh.shape[axis]
     pipeline = build_pipeline(*iops, input=input)
@@ -142,7 +127,7 @@ def execute_sharded(
     elif isinstance(read, CircularBatchRead):
         n_planes = int(read.data.shape[0])
     elif isinstance(read, BatchRead):
-        return _execute_sharded_batchread(pipeline, mesh, axis, nsh, backend)
+        return _execute_sharded_batchread(pipeline, mesh, axis, nsh)
     else:
         raise NotImplementedError(
             f"sharding of {type(read).__name__} is not supported (its plane "
@@ -152,21 +137,13 @@ def execute_sharded(
         raise ValueError(f"plane count {n_planes} must divide mesh size {nsh}")
     local_n = n_planes // nsh
 
-    if backend == ParBackend.AUTO:
-        # the same profitability gate as the unsharded executor: supports()
-        # true does not imply faster (a sharded small-frame pipeline must
-        # route to XLA too). The gates depend on per-plane/frame geometry,
-        # not plane count, so the global pipeline is representative of a
-        # local shard.
-        backend = _resolve_auto(pipeline)
-
     leaves_path, treedef = jax.tree_util.tree_flatten_with_path(pipeline)
     specs = tuple(_leaf_spec(path, axis, read) for path, _ in leaves_path)
     leaves = tuple(leaf for _, leaf in leaves_path)
 
     out_spec = _write_out_spec(pipeline, axis)
 
-    cache_key = (treedef, mesh, backend, axis)
+    cache_key = (treedef, mesh, axis)
     jitted = _SHARD_CACHE.get(cache_key)
     if jitted is None:
 
@@ -189,12 +166,10 @@ def execute_sharded(
                     data=rd.data, first=first, ascendent=rd.ascendent,
                     local_n=local_n, packed_channels=rd.packed_channels,
                 ))
-            return _lower_with_backend(p, backend)
+            return p.lower()
 
         jitted = jax.jit(shard_map(
-            local_run, mesh, in_specs=specs, out_specs=out_spec,
-            check=backend not in (ParBackend.PALLAS, ParBackend.PALLAS_INTERPRET),
-        ))
+            local_run, mesh=mesh, in_specs=specs, out_specs=out_spec))
         _SHARD_CACHE[cache_key] = jitted
     with mesh:
         return jitted(*leaves)
@@ -228,7 +203,7 @@ class _LocalRingView(ReadOp):
 
 
 def _execute_sharded_batchread(pipeline: Pipeline, mesh: Mesh, axis: str,
-                               nsh: int, backend: ParBackend):
+                               nsh: int):
     """Shard a :class:`BatchRead` pipeline (e.g. ``warp_batch``): the plane
     axis is the sub-read TUPLE, not an array axis, so per-plane leaves are
     stacked into sharded arrays while leaves shared BY IDENTITY across every
@@ -239,8 +214,6 @@ def _execute_sharded_batchread(pipeline: Pipeline, mesh: Mesh, axis: str,
     if n_planes % nsh:
         raise ValueError(f"plane count {n_planes} must divide mesh size {nsh}")
     local_n = n_planes // nsh
-    if backend == ParBackend.AUTO:
-        backend = _resolve_auto(pipeline)  # profitability-gated, like unsharded
 
     sub = [jax.tree_util.tree_flatten(o) for o in read.ops]
     sub_defs = {d for _, d in sub}
@@ -270,7 +243,7 @@ def _execute_sharded_batchread(pipeline: Pipeline, mesh: Mesh, axis: str,
 
     out_spec = _write_out_spec(pipeline, axis)
 
-    cache_key = (rest_def, sub_def, shared, n_planes, mesh, backend, axis)
+    cache_key = (rest_def, sub_def, shared, n_planes, mesh, axis)
     jitted = _SHARD_CACHE.get(cache_key)
     if jitted is None:
 
@@ -291,13 +264,11 @@ def _execute_sharded_batchread(pipeline: Pipeline, mesh: Mesh, axis: str,
                 up = jnp.clip(up - idx * local_n, 0, local_n)
             rd = dataclasses.replace(rd, ops=ops_local, used_planes=up)
             p = dataclasses.replace(p, read=rd)
-            return _lower_with_backend(p, backend)
+            return p.lower()
 
         jitted = jax.jit(
-            shard_map(local_run, mesh, in_specs=(sub_specs, rest_specs),
-                      out_specs=out_spec,
-                      check=backend not in (ParBackend.PALLAS,
-                                            ParBackend.PALLAS_INTERPRET))
+            shard_map(local_run, mesh=mesh, in_specs=(sub_specs, rest_specs),
+                      out_specs=out_spec)
         )
         _SHARD_CACHE[cache_key] = jitted
     with mesh:
@@ -311,18 +282,16 @@ def execute_divergent_sharded(
     backend: ParBackend = ParBackend.AUTO,
 ):
     """Shard a divergent batch (``launch_divergent_batch``) over the mesh's
-    plane axis: every shard runs its local planes' sequences in ONE launch.
+    plane axis: every shard runs its local planes' sequences in one program.
 
-    Plane routing becomes a RUNTIME scalar-prefetch array — each shard gets
-    its slice of the global plane->sequence map, so the single traced
-    program serves every shard (static per-shard routing is impossible
-    inside shard_map). Sources with a leading plane axis shard; shared
-    frames replicate; circular rings replicate with a per-shard rebased
-    ``first``. Warp groups (host-baked static matrices, global plane
-    indexed) are not shardable yet and raise.
+    Plane routing is a RUNTIME array — each shard gets its slice of the
+    global plane->sequence map, so one traced program serves every shard
+    (static per-shard routing is impossible inside shard_map). Sources with
+    a leading plane axis shard; shared frames replicate; circular rings
+    replicate with a per-shard rebased ``first``. BatchRead sequences are
+    not shardable here and raise.
     """
-    from ..exec import pallas_divergent
-
+    _check_backend(backend)
     axis = mesh.axis_names[0]
     nsh = mesh.shape[axis]
     seqs = list(sequences)
@@ -341,25 +310,15 @@ def execute_divergent_sharded(
     for seq in seqs:
         if isinstance(seq.read, BatchRead):
             # BatchRead sequences (warp groups, NV12 camera groups) hold
-            # GLOBAL-plane structure (baked maps / per-plane sub-reads) that
-            # this plane partitioner cannot slice — refuse cleanly instead
-            # of failing downstream with a broadcast/trace error
+            # per-plane sub-reads that this plane partitioner cannot slice —
+            # refuse cleanly instead of failing downstream with a
+            # broadcast/trace error
             raise NotImplementedError(
                 "sharded divergent BatchRead sequences are not supported "
                 "(their per-plane structure is global-plane indexed); shard "
                 "warp_batch via execute_sharded instead")
 
-    use_pallas = backend in (ParBackend.PALLAS, ParBackend.PALLAS_INTERPRET) \
-        or (backend == ParBackend.AUTO and jax.default_backend() == "tpu")
-    # same AUTO refusal as the unsharded launcher: lane-unaligned stacks
-    # would pay a per-launch full-stack padding copy (ADVICE r4)
-    use_pallas = use_pallas and pallas_divergent.supports(
-        seqs, plane_ids, allow_pad=backend != ParBackend.AUTO)
-    interpret = backend == ParBackend.PALLAS_INTERPRET or (
-        use_pallas and jax.default_backend() != "tpu")
-
     gids_global = jnp.asarray(plane_ids, jnp.int32)
-    local_ids = plane_ids[:local_n]  # static structure for the local plan
     n_seq = len(seqs)
 
     flat = [jax.tree_util.tree_flatten_with_path(s) for s in seqs]
@@ -371,7 +330,7 @@ def execute_divergent_sharded(
     )
     out_spec = _write_out_spec(seqs[0], axis)
 
-    cache_key = (seq_defs, "divergent", plane_ids, mesh, backend, use_pallas)
+    cache_key = (seq_defs, "divergent", plane_ids, mesh)
     jitted = _SHARD_CACHE.get(cache_key)
     if jitted is None:
 
@@ -389,15 +348,10 @@ def execute_divergent_sharded(
                     s = dataclasses.replace(
                         s, read=dataclasses.replace(rd, first=first))
                 local_seqs.append(s)
-            if use_pallas:
-                out = pallas_divergent.try_lower(
-                    local_seqs, local_ids, interpret=interpret, gids=gid_loc)
-                if out is not None:
-                    return local_seqs[0].write.write(out)
-            # masked-merge fallback: routing is runtime here, so every
-            # sequence computes its local planes and the gid mask selects —
-            # redundant work, but shard-uniform (static grouping needs
-            # static ids, impossible inside shard_map)
+            # masked merge: routing is runtime here, so every sequence
+            # computes its local planes and the gid mask selects — redundant
+            # work, but shard-uniform (static grouping needs static ids,
+            # impossible inside shard_map)
             outs = []
             for s in local_seqs:
                 rd = s.read
@@ -418,10 +372,9 @@ def execute_divergent_sharded(
             return local_seqs[0].write.write(merged)
 
         jitted = jax.jit(shard_map(
-            local_run, mesh,
+            local_run, mesh=mesh,
             in_specs=(P(axis),) + tuple(seq_specs),
             out_specs=out_spec,
-            check=not use_pallas,
         ))
         _SHARD_CACHE[cache_key] = jitted
     with mesh:
@@ -429,5 +382,6 @@ def execute_divergent_sharded(
 
 
 def scaling_efficiency(images_per_sec_n: float, images_per_sec_1: float, n: int) -> float:
-    """Linear-scaling efficiency metric from the north star (>= 0.85 target)."""
+    """Linear-scaling efficiency: throughput on n devices over n times the
+    single-device throughput."""
     return images_per_sec_n / (n * images_per_sec_1)

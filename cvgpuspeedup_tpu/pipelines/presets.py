@@ -120,11 +120,11 @@ class temporal_window:
 
 class video_stream:
     """End-to-end raw video streaming: native prefetch-ring frame loader ->
-    packed-lane ingestion -> one fused Pallas program per frame.
+    packed ingestion -> one fused program per frame.
 
     The loader yields zero-copy numpy views of raw row-major frames — which
-    IS the packed (H, W*C) lane layout the kernels DMA directly, so no byte
-    is ever reshaped on host or device. ``fmt="nv12"`` streams NV12 buffers
+    IS the packed (H, W*C) ingest layout, so no byte is reshaped on the
+    host. ``fmt="nv12"`` streams NV12 buffers
     through the fused YUV read instead.
 
     >>> for planar in video_stream("cam.raw", 1920, 1080, dsize=Size(640, 360),

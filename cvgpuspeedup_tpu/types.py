@@ -82,9 +82,8 @@ class PixelFormat(enum.Enum):
 
 
 class ParBackend(enum.Enum):
-    """Backend selector — the analog of ``fk::ParArch`` (reference F12)."""
+    """Backend selector — the analog of ``fk::ParArch`` (reference F12).
+    Every pipeline lowers through XLA; AUTO and XLA are the same choice."""
 
     AUTO = "auto"
     XLA = "xla"
-    PALLAS = "pallas"
-    PALLAS_INTERPRET = "pallas_interpret"

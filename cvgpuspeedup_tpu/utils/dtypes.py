@@ -1,6 +1,6 @@
 """Dtype & channel metadata + OpenCV-semantics saturating casts.
 
-TPU-native replacement for the reference's CUDA vector-type layer:
+Replacement for the reference's CUDA vector-type layer:
 
 - ``cv2cuda_t`` / ``CUDA_T`` macros (reference ``include/cv2cuda_types.cuh:25-96``):
   an OpenCV ``CV_8UC3``-style code maps to a CUDA vector type ``uchar3``. Here a

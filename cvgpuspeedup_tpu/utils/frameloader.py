@@ -1,8 +1,8 @@
 """Python binding for the native streaming frame loader (native/frameloader.cpp).
 
 Feeds raw NV12 / packed-RGB frame sequences from disk through a native
-prefetch ring so the next frame is always host-resident while the TPU runs
-the current fused pipeline — the data-path role the reference delegates to
+prefetch ring so the next frame is always host-resident while the device
+runs the current fused pipeline — the data-path role the reference delegates to
 its consumers' OpenCV/cudaMemcpy staging code.
 
 The shared library builds on demand (``make -C native``); when no compiler
@@ -62,11 +62,9 @@ def frame_shape_nv12(width: int, height: int) -> Tuple[int, int]:
 
 
 def frame_shape_packed(width: int, height: int, channels: int = 3) -> Tuple[int, int]:
-    """Packed-lane frame shape — (H, W*C) rows of interleaved pixels, the
-    framework's preferred ingest layout: a raw row-major RGB frame IS this
-    layout already (no host work), and the Pallas kernels DMA it directly,
-    whereas a (H, W, C) device array costs a full XLA relayout copy per frame
-    to repack (see ops.memory.ImageRead.packed_channels)."""
+    """Packed frame shape — (H, W*C) rows of interleaved pixels, the
+    framework's ingest layout: a raw row-major RGB frame IS this layout
+    already (no host work; see ops.memory.ImageRead.packed_channels)."""
     return (height, width * channels)
 
 

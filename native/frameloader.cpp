@@ -1,4 +1,4 @@
-// frameloader — native streaming frame source for the TPU preprocessing engine.
+// frameloader — native streaming frame source for the preprocessing engine.
 //
 // Role: the host-side data path the reference leaves to its consumers (OpenCV
 // VideoCapture / cudaMemcpy2DAsync staging, e.g. tests/resize/
@@ -6,7 +6,7 @@
 // raw NV12 / packed-RGB frame sequences are read from disk by a background
 // prefetch thread into an aligned ring of reusable buffers, so the Python/JAX
 // side always has the next frame host-resident (zero-copy numpy view) while
-// the TPU crunches the previous one.
+// the device crunches the previous one.
 //
 // C ABI (ctypes-consumed; see cvgpuspeedup_tpu/utils/frameloader.py):
 //   flv_open(path, frame_bytes, ring_depth) -> handle (or 0 on error)

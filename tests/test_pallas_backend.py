@@ -1,27 +1,31 @@
-"""Pallas emitter vs XLA path — parity in interpret mode (the "fake backend"
-SURVEY.md §4 prescribes, which the reference lacks).
+"""The flagship batched resize against the numpy reference of
+``chip_smoke.py`` (and cv2 where it has the same semantics). These cases
+once compared a Pallas kernel with XLA; the kernel is gone (``PERF.md``), and
+each case now holds the XLA lowering to the reference.
 
-The flagship pipeline must agree between:
-  - the XLA gather path (oracle-verified in test_batchresize.py), and
-  - the Pallas MXU-matmul kernel (interpret mode on CPU here; the real
-    Mosaic compile is exercised by bench.py on TPU hardware)
-within the 1e-4 float contract. Exact bitwise equality is impossible in
-general: XLA fuses ``a*(1-w) + b*w`` into FMAs (unrounded products) while the
-matmul path rounds each product — a ~2 ulp divergence. Integer outputs remain
-bit-exact except on exact .5 rounding ties.
+Covers what the reference's batch-resize tests sweep
+(``tests/batchresize/test_batchresize_x_split3D.cu``,
+``test_batchresize_aspectratio_x_split3D.cu``): aspect-ratio modes, channel
+counts, source dtypes, ragged planes, output sizes that are not powers of
+two, rects at the frame edges, every write layout, and chains with casts,
+swizzles and GRAY — float outputs within 1e-4 per pixel, integer outputs
+bit-exact except on a .5 rounding edge.
 """
 
+import cv2
 import numpy as np
 import pytest
 
 import cvgpuspeedup_tpu as cvgs
-from cvgpuspeedup_tpu.exec import pallas_backend
-from conftest import assert_backend, check_exact, check_float
+from chip_smoke import (PhaseFailed, check_u8, ref_batch_resize, ref_letterbox,
+                        ref_resize)
+from conftest import check_exact, check_float
 
 UP = (64, 128)
+MEAN = np.array([3.2, 0.6, 11.8])
 
 
-def _frame(rng, h=296, w=384, c=3, dtype=np.uint8):  # tile-aligned dims (8, 128px)
+def _frame(rng, h=296, w=384, c=3, dtype=np.uint8):
     return rng.integers(0, 256, (h, w, c)).astype(dtype)
 
 
@@ -29,47 +33,70 @@ def _rects(batch, cw=60, ch=120):
     return np.array([[i * 2, i, cw - (i % 7), ch - (i % 5)] for i in range(batch)], np.int32)
 
 
-def _both(ops):
-    x = np.asarray(cvgs.execute_operations(*ops, backend=cvgs.ParBackend.XLA))
-    p = np.asarray(cvgs.execute_operations(*ops, backend=cvgs.ParBackend.PALLAS_INTERPRET))
-    assert_backend("pallas:batch_resize:interpret")
-    return x, p
+def _fit(mode, w, h, dst_w, dst_h):
+    """Fitted sub-rect of every aspect-ratio mode, from the reference's
+    PRESERVE_AR rule."""
+    if mode == cvgs.AspectRatio.IGNORE_AR:
+        return dst_w, dst_h, 0, 0
+    nw, nh, ox, oy = ref_letterbox(w, h, dst_w, dst_h, preserve=True)
+    if mode == cvgs.AspectRatio.PRESERVE_AR_RN_EVEN:
+        nw = min(((nw + 1) // 2) * 2, dst_w)
+        nh = min(((nh + 1) // 2) * 2, dst_h)
+        ox, oy = (dst_w - nw) // 2, (dst_h - nh) // 2
+    if mode == cvgs.AspectRatio.PRESERVE_AR_LEFT:
+        ox = oy = 0
+    return nw, nh, ox, oy
 
 
-def test_supports_flagship(rng):
-    pipe = cvgs.build_pipeline(
-        cvgs.resize_batch(_frame(rng), rects=_rects(4), dsize=cvgs.Size(*UP)),
-        cvgs.multiply(0.5),
-        cvgs.split_tensor(),
-    )
-    assert pallas_backend.supports(pipe)
+def _ref(frame, rects, mode=cvgs.AspectRatio.IGNORE_AR, dsize=UP,
+         background=0.0, used=None):
+    """(N, H, W, C) float64 reference for any aspect-ratio mode."""
+    frame = frame if frame.ndim == 3 else frame[..., None]
+    dst_w, dst_h = dsize
+    n, c = len(rects), frame.shape[-1]
+    out = np.empty((n, dst_h, dst_w, c))
+    out[:] = np.broadcast_to(np.asarray(background, np.float64), (c,))
+    for z in range(n if used is None else used):
+        x, y, w, h = (int(v) for v in rects[z])
+        nw, nh, ox, oy = _fit(mode, w, h, dst_w, dst_h)
+        out[z, oy:oy + nh, ox:ox + nw] = ref_resize(frame[y:y + h, x:x + w], nw, nh)
+    return out
+
+
+def _flagship_chain(ref):
+    return ((ref * 0.3 - MEAN) / 128.0).transpose(0, 3, 1, 2)
 
 
 def test_flagship_parity_tensor_split(rng):
     frame = _frame(rng)
-    ops = [
-        cvgs.resize_batch(frame, rects=_rects(6), dsize=cvgs.Size(*UP),
+    rects = _rects(6)
+    out = np.asarray(cvgs.execute_operations(
+        cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(*UP),
                           used_planes=5, background=128.0),
         cvgs.convert_to(np.float32, alpha=0.3),
         cvgs.subtract((3.2, 0.6, 11.8)),
         cvgs.divide((128.0, 128.0, 128.0)),
         cvgs.split_tensor(),
-    ]
-    x, p = _both(ops)
-    assert x.shape == p.shape == (6, 3, UP[1], UP[0])
-    check_float(p, x, msg="pallas vs xla flagship")
+    ))
+    assert out.shape == (6, 3, UP[1], UP[0])
+    check_float(out, _flagship_chain(_ref(frame, rects, background=128.0, used=5)),
+                msg="flagship vs reference")
+    # the chip-smoke reference agrees with the test-side one
+    check_float(out, _flagship_chain(
+        ref_batch_resize(frame, rects, *UP, background=128.0, used=5)),
+        msg="flagship vs chip_smoke reference")
 
 
 def test_flagship_parity_u8_output(rng):
     frame = _frame(rng)
-    ops = [
-        cvgs.resize_batch(frame, rects=_rects(3), dsize=cvgs.Size(*UP)),
+    rects = _rects(3)
+    out = np.asarray(cvgs.execute_operations(
+        cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(*UP)),
         cvgs.convert_to(np.uint8),
         cvgs.split_tensor(),
-    ]
-    x, p = _both(ops)
-    assert p.dtype == np.uint8
-    check_exact(p, x, "u8 output parity")
+    ))
+    assert out.dtype == np.uint8
+    check_u8("u8 flagship", out, _ref(frame, rects).transpose(0, 3, 1, 2))
 
 
 @pytest.mark.parametrize("mode", [
@@ -79,200 +106,195 @@ def test_flagship_parity_u8_output(rng):
 ])
 def test_letterbox_parity(rng, mode):
     frame = _frame(rng)
-    ops = [
-        cvgs.resize_batch(frame, rects=_rects(5, cw=30, ch=120),
-                          dsize=cvgs.Size(*UP), background=99.0,
-                          aspect_ratio=mode),
-    ]
-    x, p = _both(ops)
-    check_float(p, x, msg=f"letterbox {mode.name}")
+    rects = _rects(5, cw=30, ch=120)
+    out = np.asarray(cvgs.execute_operations(
+        cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(*UP),
+                          background=99.0, aspect_ratio=mode),
+    ))
+    check_float(out, _ref(frame, rects, mode, background=99.0),
+                msg=f"letterbox {mode.name}")
 
 
 def test_stack_mode_parity(rng):
     imgs = [_frame(rng, 100, 50), _frame(rng, 80, 120), _frame(rng, 37, 61)]
-    ops = [
+    out = np.asarray(cvgs.execute_operations(
         cvgs.resize_batch(imgs, dsize=cvgs.Size(32, 32)),
         cvgs.multiply(2.0),
         cvgs.split_tensor(),
-    ]
-    x, p = _both(ops)
-    check_float(p, x, msg="stack mode")
+    ))
+    for z, im in enumerate(imgs):
+        check_float(out[z], (ref_resize(im, 32, 32) * 2.0).transpose(2, 0, 1),
+                    msg=f"stack plane {z}")
 
 
 def test_chain_with_swizzle_and_gray(rng):
     frame = _frame(rng)
-    ops = [
-        cvgs.resize_batch(frame, rects=_rects(3), dsize=cvgs.Size(*UP)),
-        cvgs.convert_to(np.uint8),
+    rects = _rects(3)
+    ops = lambda *tail: [
+        cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(*UP)),
+        cvgs.convert_to(np.uint8), *tail,
+    ]
+    rgb = np.asarray(cvgs.execute_operations(*ops(cvgs.write_tensor())))
+    gray = np.asarray(cvgs.execute_operations(*ops(
         cvgs.cvt_color(cvgs.ColorConversionCode.COLOR_RGB2GRAY),
-        cvgs.split_tensor(),
-    ]
-    x, p = _both(ops)
-    assert p.shape == (3, 1, UP[1], UP[0])
-    check_exact(p, x, "gray chain parity")
+        cvgs.split_tensor())))
+    bgr = np.asarray(cvgs.execute_operations(*ops(
+        cvgs.cvt_color(cvgs.ColorConversionCode.COLOR_RGB2BGR),
+        cvgs.split_tensor())))
+    assert gray.shape == (3, 1, UP[1], UP[0])
+    for z in range(3):
+        check_exact(gray[z, 0], cv2.cvtColor(rgb[z], cv2.COLOR_RGB2GRAY),
+                    f"gray plane {z}")
+        check_exact(bgr[z], rgb[z, ..., ::-1].transpose(2, 0, 1),
+                    f"swizzle plane {z}")
 
 
-@pytest.mark.parametrize("write,shape", [
-    ("split_tensor_transposed", (3, 4, 128, 64)),
-    ("write_tensor", (4, 128, 64, 3)),
+@pytest.mark.parametrize("write,shape,perm", [
+    ("split_tensor_transposed", (3, 4, 128, 64), (3, 0, 1, 2)),
+    ("write_tensor", (4, 128, 64, 3), (0, 1, 2, 3)),
 ])
-def test_write_layouts_parity(rng, write, shape):
+def test_write_layouts_parity(rng, write, shape, perm):
     frame = _frame(rng)
-    ops = [
-        cvgs.resize_batch(frame, rects=_rects(4), dsize=cvgs.Size(*UP)),
+    rects = _rects(4)
+    out = np.asarray(cvgs.execute_operations(
+        cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(*UP)),
         getattr(cvgs, write)(),
-    ]
-    x, p = _both(ops)
-    assert p.shape == shape
-    check_float(p, x, msg=write)
+    ))
+    assert out.shape == shape
+    check_float(out, _ref(frame, rects).transpose(perm), msg=write)
 
 
 def test_split_write_parity(rng):
     frame = _frame(rng)
-    ops = [
-        cvgs.resize_batch(frame, rects=_rects(4), dsize=cvgs.Size(*UP)),
+    rects = _rects(4)
+    out = cvgs.execute_operations(
+        cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(*UP)),
         cvgs.split(),
-    ]
-    x = cvgs.execute_operations(*ops, backend=cvgs.ParBackend.XLA)
-    p = cvgs.execute_operations(*ops, backend=cvgs.ParBackend.PALLAS_INTERPRET)
-    assert_backend("pallas:batch_resize:interpret")
-    assert isinstance(p, (tuple, list)) and len(p) == 3
+    )
+    assert isinstance(out, (tuple, list)) and len(out) == 3
+    ref = _ref(frame, rects)
     for c in range(3):
-        check_float(np.asarray(p[c]), np.asarray(x[c]), msg=f"split ch{c}")
-
-
-def test_unsupported_falls_back(rng):
-    """Unsupported chain op (YUV conversion mid-chain needs 3 planes from a
-    resize read — supported; use an op with no planar lowering instead)."""
-    frame = _frame(rng)
-    # warp read head is not the flagship pattern -> XLA fallback, same result
-    m = np.array([[1.0, 0.0, 2.0], [0.0, 1.0, 1.0]])
-    ops = [cvgs.warp(frame, m, cvgs.Size(64, 64))]
-    x = np.asarray(cvgs.execute_operations(*ops, backend=cvgs.ParBackend.XLA))
-    p = np.asarray(cvgs.execute_operations(*ops, backend=cvgs.ParBackend.PALLAS_INTERPRET))
-    assert_backend("xla")
-    check_float(p, x, tol=0, msg="fallback identical")
-
-
-def test_debug_mode_forces_interpret(rng):
-    """debug_mode(): AUTO/PALLAS lowerings run interpreted (nvcc -G analog)."""
-    from cvgpuspeedup_tpu.exec.executor import debug_mode
-    frame = _frame(rng)
-    ops = lambda: [
-        cvgs.resize_batch(frame, rects=_rects(3), dsize=cvgs.Size(*UP)),
-        cvgs.multiply(0.5),
-        cvgs.split_tensor(),
-    ]
-    ref = np.asarray(cvgs.execute_operations(*ops(), backend=cvgs.ParBackend.XLA))
-    with debug_mode():
-        out = np.asarray(cvgs.execute_operations(*ops(), backend=cvgs.ParBackend.PALLAS))
-    check_float(out, ref, msg="debug-mode interpret parity")
+        check_float(np.asarray(out[c]), ref[..., c], msg=f"split ch{c}")
 
 
 def test_chain_with_alpha_add_parity(rng):
-    """BGR2BGRA (alpha append) inside the Pallas chain."""
+    """BGR2BGRA (alpha append) after a u8 cast."""
     frame = _frame(rng)
-    ops = lambda: [
-        cvgs.resize_batch(frame, rects=_rects(3), dsize=cvgs.Size(*UP)),
+    rects = _rects(3)
+    out = np.asarray(cvgs.execute_operations(
+        cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(*UP)),
         cvgs.convert_to(np.uint8),
         cvgs.cvt_color(cvgs.ColorConversionCode.COLOR_BGR2BGRA),
         cvgs.split_tensor(),
-    ]
-    x = np.asarray(cvgs.execute_operations(*ops(), backend=cvgs.ParBackend.XLA))
-    p = np.asarray(cvgs.execute_operations(*ops(), backend=cvgs.ParBackend.PALLAS_INTERPRET))
-    assert_backend("pallas:batch_resize:interpret")
-    assert p.shape == (3, 4, UP[1], UP[0])
-    assert np.all(np.asarray(p)[:, 3] == 255)
-    check_exact(p, x, "alpha-append chain parity")
+    ))
+    assert out.shape == (3, 4, UP[1], UP[0])
+    assert np.all(out[:, 3] == 255)
+    check_u8("alpha-append chain", out[:, :3],
+             _ref(frame, rects).transpose(0, 3, 1, 2))
 
 
 def test_packed_split_parity(rng):
-    """TensorSplitPacked: same values as TensorSplit in packed row-pair order,
-    on both backends (Pallas interpret vs XLA), bit-identical."""
+    """TensorSplitPacked: the same values as TensorSplit in packed row order."""
     frame = rng.integers(0, 256, (512, 768, 3)).astype(np.uint8)
     rects = np.array([[i, i, 60, 120] for i in range(8)], np.int32)
 
-    def run(write, backend):
+    def run(write):
         return np.asarray(cvgs.execute_operations(
             cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(64, 128)),
             cvgs.convert_to(np.float32, alpha=0.3),
             cvgs.subtract((3.2, 0.6, 11.8)),
             cvgs.divide((128.0, 128.0, 128.0)),
-            write, backend=backend,
+            write,
         ))
 
-    planar = run(cvgs.split_tensor(), cvgs.ParBackend.XLA)
-    packed_x = run(cvgs.split_tensor_packed(), cvgs.ParBackend.XLA)
-    packed_p = run(cvgs.split_tensor_packed(), cvgs.ParBackend.PALLAS_INTERPRET)
-    assert_backend("pallas:batch_resize:interpret")
-    assert packed_x.shape == (8, 3, 64, 128)
-    # packed reshaped row-major == planar
-    assert np.array_equal(packed_x.reshape(8, 3, 128, 64), planar)
-    assert np.array_equal(packed_p, packed_x)
+    planar = run(cvgs.split_tensor())
+    packed = run(cvgs.split_tensor_packed())
+    assert packed.shape == (8, 3, 64, 128)
+    assert np.array_equal(packed.reshape(8, 3, 128, 64), planar)
+    check_float(planar, _flagship_chain(_ref(frame, rects)), msg="planar")
 
 
 def test_packed_split_ragged_letterbox(rng):
     """Packed layout with masking paths active (letterbox + ragged batch)."""
     frame = rng.integers(0, 256, (512, 768, 3)).astype(np.uint8)
     rects = np.array([[8 * i, 4 * i, 30 + i, 100] for i in range(6)], np.int32)
-
-    def run(write, backend):
-        return np.asarray(cvgs.execute_operations(
-            cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(64, 128),
-                              aspect_ratio=cvgs.AspectRatio.PRESERVE_AR,
-                              used_planes=4, background=(7.0, 8.0, 9.0)),
-            cvgs.convert_to(np.float32),
-            write, backend=backend,
-        ))
-
-    planar = run(cvgs.split_tensor(), cvgs.ParBackend.XLA)
-    packed_p = run(cvgs.split_tensor_packed(), cvgs.ParBackend.PALLAS_INTERPRET)
-    assert_backend("pallas:batch_resize:interpret")
-    # letterbox geometry is the non-bf16-exact regime: matmul-vs-lerp product
-    # rounding may differ ~1 ulp (the standard float contract applies)
-    check_float(packed_p.reshape(6, 3, 128, 64), planar, msg="packed letterbox")
+    packed = np.asarray(cvgs.execute_operations(
+        cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(64, 128),
+                          aspect_ratio=cvgs.AspectRatio.PRESERVE_AR,
+                          used_planes=4, background=(7.0, 8.0, 9.0)),
+        cvgs.convert_to(np.float32),
+        cvgs.split_tensor_packed(),
+    ))
+    ref = _ref(frame, rects, cvgs.AspectRatio.PRESERVE_AR,
+               background=(7.0, 8.0, 9.0), used=4)
+    check_float(packed.reshape(6, 3, 128, 64), ref.transpose(0, 3, 1, 2),
+                msg="packed letterbox")
 
 
 def test_bottom_aligned_uniform_crops(rng):
-    """Uniform-geometry crops whose 8-aligned window start CLAMPS at the
-    frame bottom: dy = y0 - (src_h - win_h) exceeds 7 there, so the baked
-    per-dy vertical-matrix table must be sized past 8 entries (a regression
-    guard: an 8-entry table made wv_ref[dy] read out of bounds and use wrong
-    vertical taps for bottom crops)."""
+    """Uniform crops whose bottom edge is the frame's bottom row."""
     frame = rng.integers(0, 256, (512, 768, 3)).astype(np.uint8)
-    # h=64 -> win_h = 72; y0 = 448 gives dy = 448 - (512 - 72) = 8
-    rects = np.array(
-        [[7 * i, 440 + i, 60, 64] for i in range(9)], np.int32
-    )
-    assert rects[:, 1].max() + 64 <= 512
-    ops = [
+    rects = np.array([[7 * i, 440 + i, 60, 64] for i in range(9)], np.int32)
+    rects[-1, 1] = 512 - 64
+    out = np.asarray(cvgs.execute_operations(
         cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(*UP)),
         cvgs.convert_to(np.float32, alpha=0.5),
         cvgs.split_tensor(),
-    ]
-    pipe = cvgs.build_pipeline(*ops)
-    assert pipe.read.uniform_wh == (60, 64)  # baked-weights path engaged
-    x, p = _both(ops)
-    check_float(p, x, msg="bottom-aligned uniform crops")
+    ))
+    check_float(out, (_ref(frame, rects) * 0.5).transpose(0, 3, 1, 2),
+                msg="bottom-aligned uniform crops")
 
 
-def test_pipelined_schedule_parity(rng):
-    """The software-pipelined baked schedule (A/B knob) computes the same
-    values as the plain schedule and the XLA path."""
-    from cvgpuspeedup_tpu.exec import pallas_backend as pb
+def test_rects_touch_frame_edges(rng):
+    """Crops anchored at every corner of the frame, and the whole frame."""
+    frame = _frame(rng, 120, 200)
+    rects = np.array([[0, 0, 50, 40], [150, 0, 50, 40], [0, 80, 50, 40],
+                      [150, 80, 50, 40], [0, 0, 200, 120]], np.int32)
+    out = np.asarray(cvgs.execute_operations(
+        cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(48, 32)),
+    ))
+    check_float(out, _ref(frame, rects, dsize=(48, 32)), msg="edge rects")
 
-    frame = rng.integers(0, 256, (296, 384, 3)).astype(np.uint8)
-    rects = np.array([[i, i, 60, 120] for i in range(20)], np.int32)
-    ops = lambda: [
-        cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(64, 128)),
-        cvgs.convert_to(np.float32, alpha=0.3),
+
+@pytest.mark.parametrize("dsize", [(37, 53), (100, 7), (1, 1)])
+def test_non_power_of_two_dsize(rng, dsize):
+    frame = _frame(rng)
+    rects = _rects(4)
+    out = np.asarray(cvgs.execute_operations(
+        cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(*dsize),
+                          aspect_ratio=cvgs.AspectRatio.PRESERVE_AR,
+                          background=5.0),
+    ))
+    assert out.shape == (4, dsize[1], dsize[0], 3)
+    check_float(out, _ref(frame, rects, cvgs.AspectRatio.PRESERVE_AR, dsize,
+                          background=5.0), msg=f"dsize {dsize}")
+
+
+@pytest.mark.parametrize("mode", [cvgs.AspectRatio.IGNORE_AR,
+                                  cvgs.AspectRatio.PRESERVE_AR])
+@pytest.mark.parametrize("src_dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("ch", [1, 3, 4])
+def test_channels_dtypes_modes(rng, ch, src_dtype, mode):
+    frame = _frame(rng, 160, 224, ch, src_dtype)
+    if src_dtype == np.float32:
+        frame = frame + rng.random(frame.shape, dtype=np.float32)
+    rects = _rects(5, cw=44, ch=80)
+    bg = tuple(float(10 + c) for c in range(ch))
+    out = np.asarray(cvgs.execute_operations(
+        cvgs.resize_batch(frame, rects=rects, dsize=cvgs.Size(32, 48),
+                          aspect_ratio=mode, background=bg, used_planes=4),
+        cvgs.multiply(0.5),
         cvgs.split_tensor(),
-    ]
-    x = np.asarray(cvgs.execute_operations(*ops(), backend=cvgs.ParBackend.XLA))
-    old = pb._PIPELINE_SCHEDULE
-    try:
-        pb._PIPELINE_SCHEDULE = True
-        p = pb.try_lower(cvgs.build_pipeline(*ops()), interpret=True)
-        check_float(np.asarray(p), x, tol=0, msg="pipelined schedule vs xla")
-    finally:
-        pb._PIPELINE_SCHEDULE = old
+    ))
+    ref = _ref(frame, rects, mode, (32, 48), background=bg, used=4) * 0.5
+    check_float(out, ref.transpose(0, 3, 1, 2),
+                msg=f"c{ch} {np.dtype(src_dtype).name} {mode.name}")
+
+
+def test_check_u8_accepts_only_edge_flips():
+    """The u8 check of ``chip_smoke`` lets a pixel round either way only
+    when its exact value sits on a .5 tie."""
+    ref = np.array([[0.5, 2.5, 3.2]])
+    check_u8("ties", np.array([[1, 2, 3]], np.uint8), ref)
+    with pytest.raises(PhaseFailed):
+        check_u8("off by one", np.array([[0, 2, 4]], np.uint8), ref)

@@ -129,7 +129,7 @@ def test_polyphase_matches_gather_path(rng, src_wh, dst_wh):
 ])
 @pytest.mark.parametrize("channels", [1, 3])
 def test_resize_matmul_path_vs_cv2(rng, src_wh, dst_wh, channels):
-    """Ratios beyond the polyphase cap lower to dense MXU matmuls; weights
+    """Ratios beyond the polyphase cap lower to dense matmuls; weights
     use the identical axis_lerp taps so parity holds at the same tolerance."""
     from cvgpuspeedup_tpu.ops import resize as resize_mod
     import math
